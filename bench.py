@@ -1,14 +1,14 @@
-"""Benchmark: decode throughput of the TPU engine on the reference's
+"""Benchmark: decode throughput of the GPU engine on the reference's
 CANONICAL benchmark shape — a 512^3 connectomics-like volume
 (benchmarks/README.md:243-282 uses 512^3 connectomics.npy).
 
 Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, ...}
 
-The primary metric is steady-state decode throughput from an
-HBM-resident compressed stream (engine.DeviceStream): the compressed
-binary (~1.4% of raw) is uploaded once, then the full volume decodes
-entirely on device — the TPU-native serving path for in-memory
+The primary metric is steady-state decode throughput from a
+device-resident compressed stream (engine.DeviceStream): the
+compressed binary (~1% of raw) is uploaded once, then the full volume
+decodes entirely on device — the serving path for in-memory
 compressed segmentation. vs_baseline compares against the
 reference's single-thread decode of 512^3 connectomics.npy on an M3
 (545.6 MVx/s, benchmarks/README.md:272).
@@ -30,6 +30,7 @@ import sys
 import time
 import traceback
 
+import jax
 import numpy as np
 
 BENCH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -109,12 +110,6 @@ def get_binary():
   return binary, vol
 
 
-def _sync(x):
-  import numpy as _np
-  import jax.numpy as jnp
-  _np.asarray(jnp.max(x))
-
-
 def _fence(name, fn, *args, **kwargs):
   """Run a bench section; on any failure print the traceback to
   stderr and return None instead of aborting the run."""
@@ -142,10 +137,10 @@ def _bench_512(crackle, engine, jnp):
     print("512^3: upload_stream fell back to host path", file=sys.stderr)
     return None
   labels, cc, N = stream.decode_window(0, sz, check_crcs=True)
-  _sync(labels)
+  jax.block_until_ready(labels)
   print(f"512^3 upload+compile+crc-checked decode: "
         f"{time.perf_counter() - t0:.1f} s "
-        f"({stream.nbytes_device / 1e6:.1f} MB in HBM vs "
+        f"({stream.nbytes_device / 1e6:.1f} MB on device vs "
         f"{voxels * 4 / 1e6:.0f} MB raw)", file=sys.stderr)
 
   best = None
@@ -155,7 +150,7 @@ def _bench_512(crackle, engine, jnp):
     for _i in range(4):
       labels, cc, N = stream.decode_window(0, sz)
       outs.append(jnp.max(labels))
-    _sync(jnp.stack(outs))
+    jax.block_until_ready(jnp.stack(outs))
     dt = (time.perf_counter() - t0) / 4
     best = dt if best is None else min(best, dt)
   mvx = voxels / best / 1e6
@@ -170,7 +165,7 @@ def _bench_noise(crackle, engine):
   multi-chain slices split into device-decodable virtual slices, but
   binary noise is one giant crack chain per slice (~95% of the
   stream), which cannot split — those route to the native host
-  decoder by design (BENCH_NOTES "compile-time cliffs"). Measures
+  decoder by design (engine.MAX_DEVICE_CAP). Measures
   whichever path the dispatch actually picks."""
   path = os.path.join(BENCH_DIR, "binary_noise_512x512x16.ckl")
   if not os.path.exists(path):
@@ -203,11 +198,11 @@ def _bench_noise(crackle, engine):
 
 def _bench_encode_device(crackle, jnp, vol, voxels):
   """Device encode: per-voxel stages (VCG, CCL, tables, CRC32C) on
-  the TPU from a device-resident volume; host tail = DFS trace +
+  the device from a device-resident volume; host tail = DFS trace +
   assembly (kernels/encode.encode_flat_device). Reference bar:
   246.3 MVx/s single-thread M3 (benchmarks/README.md:255)."""
   dev_vol = jnp.asarray(np.ascontiguousarray(vol))
-  _sync(jnp.max(dev_vol))
+  jax.block_until_ready(jnp.max(dev_vol))
   enc = crackle.compress(dev_vol)  # warm + compile
   want = crackle.compress(vol)
   ok = enc == want
@@ -231,12 +226,12 @@ def _bench_stage1(jnp, vol, voxels):
   zyx = np.ascontiguousarray(np.transpose(vol, (2, 1, 0)))
   planes = jnp.asarray(zyx.astype(np.uint32).view(np.int32))
   outs = enc_k._encode_stage1(planes, sx, sy, False)  # warm
-  _sync(outs[4])
+  jax.block_until_ready(outs[4])
   best = None
   for _ in range(3):
     t0 = time.perf_counter()
     outs = enc_k._encode_stage1(planes, sx, sy, False)
-    _sync(outs[4])
+    jax.block_until_ready(outs[4])
     dt = time.perf_counter() - t0
     best = dt if best is None else min(best, dt)
   mvx = voxels / best / 1e6
@@ -260,7 +255,7 @@ def _bench_markov(crackle, engine, jnp):
     print("markov: upload_stream declined", file=sys.stderr)
     return None
   labels, cc, N = stream.decode_window(0, sz, check_crcs=True)
-  _sync(jnp.max(labels))
+  jax.block_until_ready(jnp.max(labels))
   best = None
   for _ in range(3):
     t0 = time.perf_counter()
@@ -268,7 +263,7 @@ def _bench_markov(crackle, engine, jnp):
     for _i in range(4):
       labels, cc, N = stream.decode_window(0, sz)
       outs.append(jnp.max(labels))
-    _sync(jnp.stack(outs))
+    jax.block_until_ready(jnp.stack(outs))
     dt = (time.perf_counter() - t0) / 4
     best = dt if best is None else min(best, dt)
   mvx = voxels / best / 1e6
@@ -278,7 +273,7 @@ def _bench_markov(crackle, engine, jnp):
 
 
 def _bench_pins(crackle, engine, jnp):
-  """Pins stream served from an HBM-resident DeviceStream (sections
+  """Pins stream served from a device-resident DeviceStream (sections
   and pin tables uploaded once, like flat streams)."""
   path = os.path.join(BENCH_DIR, "connectomics_v2_pins_256x256x128.ckl")
   if not os.path.exists(path):
@@ -291,7 +286,7 @@ def _bench_pins(crackle, engine, jnp):
     print("pins: upload_stream declined", file=sys.stderr)
     return None
   labels, cc, N = stream.decode_window(0, sz, check_crcs=True)
-  _sync(jnp.max(labels))
+  jax.block_until_ready(jnp.max(labels))
   best = None
   for _ in range(3):
     t0 = time.perf_counter()
@@ -299,7 +294,7 @@ def _bench_pins(crackle, engine, jnp):
     for _i in range(4):
       labels, cc, N = stream.decode_window(0, sz)
       outs.append(jnp.max(labels))
-    _sync(jnp.stack(outs))
+    jax.block_until_ready(jnp.stack(outs))
     dt = (time.perf_counter() - t0) / 4
     best = dt if best is None else min(best, dt)
   mvx = voxels / best / 1e6
@@ -324,7 +319,7 @@ def _bench_watershed(crackle, engine, jnp):
     print("watershed: upload_stream declined", file=sys.stderr)
     return None
   labels, cc, N = stream.decode_window(0, sz, check_crcs=True)
-  _sync(jnp.max(labels))
+  jax.block_until_ready(jnp.max(labels))
   best = None
   for _ in range(3):
     t0 = time.perf_counter()
@@ -332,7 +327,7 @@ def _bench_watershed(crackle, engine, jnp):
     for _i in range(4):
       labels, cc, N = stream.decode_window(0, sz)
       outs.append(jnp.max(labels))
-    _sync(jnp.stack(outs))
+    jax.block_until_ready(jnp.stack(outs))
     dt = (time.perf_counter() - t0) / 4
     best = dt if best is None else min(best, dt)
   mvx = voxels / best / 1e6
@@ -372,7 +367,7 @@ def _bench_256(crackle, engine, jnp, binary, vol, voxels, sz):
   # single unwarmed rep right after the big d2h measured 13x slow
   # (round-3/4 postmortem — the kernels were never the regression)
   stream256.decode_window(0, sz)
-  _sync(jnp.max(labels))
+  jax.block_until_ready(jnp.max(labels))
   best = None
   for _ in range(3):
     t0 = time.perf_counter()
@@ -380,7 +375,7 @@ def _bench_256(crackle, engine, jnp, binary, vol, voxels, sz):
     for _i in range(8):
       labels, cc, N = stream256.decode_window(0, sz)
       outs.append(jnp.max(labels))
-    _sync(jnp.stack(outs))
+    jax.block_until_ready(jnp.stack(outs))
     dt = (time.perf_counter() - t0) / 8
     best = dt if best is None else min(best, dt)
   dt = best
@@ -393,15 +388,24 @@ def _bench_256(crackle, engine, jnp, binary, vol, voxels, sz):
 def main():
   import crackle_tpu as crackle
   from crackle_tpu.kernels import engine
-  import jax
   import jax.numpy as jnp
+
+  backend = jax.default_backend()
+  if backend != "gpu":
+    print(f"bench: needs a GPU; JAX's backend is {backend!r}",
+          file=sys.stderr)
+    sys.exit(1)
+  import subprocess
+  card = subprocess.run(
+    ["nvidia-smi", "--query-gpu=name,power.limit",
+     "--format=csv,noheader"],
+    capture_output=True, text=True, timeout=60, check=True).stdout
+  print(f"card: {card.strip()} devices: {jax.devices()}",
+        file=sys.stderr)
 
   binary, vol = get_binary()
   voxels = SHAPE[0] * SHAPE[1] * SHAPE[2]
   sz = SHAPE[2]
-
-  backend = jax.default_backend()
-  print(f"backend: {backend} devices: {jax.devices()}", file=sys.stderr)
 
   encode_mvx = _fence("encode", _bench_encode, crackle, vol, voxels)
 

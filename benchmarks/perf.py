@@ -1,6 +1,6 @@
 """Per-pattern encode/decode throughput benchmark (reference parity:
 benchmarks/perf.py). Measures MVx/s for both the host engine and, on
-TPU, the device engine, across the reference's test patterns:
+a GPU, the device engine, across the reference's test patterns:
 connectomics-like, watershed-like (u64), random noise, binary noise,
 and empty volumes.
 

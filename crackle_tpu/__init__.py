@@ -1,4 +1,4 @@
-"""crackle_tpu: a TPU-native lossless compression codec for 3D dense
+"""crackle_tpu: a JAX lossless compression codec for 3D dense
 segmentation volumes, with the full capabilities of seung-lab/crackle.
 
 The structure of each 2D z-slice (boundaries between labels) is stored
@@ -10,8 +10,8 @@ z-index, and layered CRCs frame the stream, enabling random z access,
 label queries, and in-place remapping without decompression.
 
 Unlike the C++/SIMD reference, the compute path here is data-parallel:
-vectorized numpy on host and JAX/Pallas kernels on TPU, with z-slices
-sharded across chips via jax.sharding for multi-chip scaling
+vectorized numpy on host and JAX/XLA programs on the accelerator (an
+NVIDIA GPU), with z-slices sharded across devices via jax.sharding
 (crackle_tpu.parallel).
 """
 from .array import CrackleArray, CrackleDeviceArray, CrackleRemoteArray

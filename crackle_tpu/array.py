@@ -501,12 +501,12 @@ def check_bounds(val, low, high):
 
 
 class CrackleDeviceArray:
-  """Read-only numpy-like facade over an HBM-resident compressed
+  """Read-only numpy-like facade over a device-resident compressed
   stream (kernels/engine.DeviceStream): the compressed sections live
-  in device HBM (typically 1-3% of raw) and every cutout read decodes
-  ON the TPU, returning a device-resident jax array with no host
-  round trip — the TPU-serving analog of CrackleArray (the reference
-  keeps the binary in host RAM and decodes cutouts on CPU,
+  in device memory (typically 1-3% of raw) and every cutout read
+  decodes on the device, returning a device-resident jax array with
+  no host round trip — the device-serving analog of CrackleArray (the
+  reference keeps the binary in host RAM and decodes cutouts on CPU,
   array.py:32-341).
 
   Flat and condensed-pins streams are eligible (markov orders too —

@@ -2,8 +2,8 @@
 
 Host orchestration layer (reference parity: crackle/codec.py,
 src/crackle.hpp). Byte plumbing stays on host; per-voxel work runs
-through the vectorized ops (numpy engine) or the JAX/TPU kernels
-(crackle_tpu.kernels) when enabled.
+through the vectorized ops (numpy engine) or the JAX device path
+(crackle_tpu.kernels) when device_path_on() says so.
 """
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 from collections import namedtuple
@@ -22,10 +22,8 @@ from .models import markov as _markov
 
 PinTuple = namedtuple('Pin', ['index', 'depth'])
 
-# Decode engine selection: 'auto' uses the JAX/TPU engine when an
-# accelerator backend is present (markov / pins streams fall back to
-# the numpy engine until their device paths land); 'numpy' and 'jax'
-# force a choice.
+# Engine selection: 'auto' uses the JAX device path when JAX's default
+# backend is an accelerator; 'numpy' and 'jax' force a choice.
 _ENGINE = 'auto'
 
 
@@ -40,16 +38,14 @@ def get_engine() -> str:
   return _ENGINE
 
 
-def _jax_engine_enabled() -> bool:
-  if _ENGINE == 'numpy':
-    return False
-  if _ENGINE == 'jax':
-    return True
-  try:
-    import jax
-    return jax.default_backend() != 'cpu'
-  except Exception:
-    return False
+def device_path_on() -> bool:
+  """The one place that decides whether decode, encode and analytics
+  take the JAX device path: forced by set_engine, else on whenever
+  JAX's default backend is not the CPU."""
+  if _ENGINE != 'auto':
+    return _ENGINE == 'jax'
+  import jax
+  return jax.default_backend() != 'cpu'
 
 
 # ---------------------------------------------------------------------------
@@ -480,9 +476,10 @@ def _full_decode(binary: bytes, z_start: int, z_end: int,
 
   The destination here is HOST memory, so in auto mode the native C++
   stream decoder goes first — it produces the array in place with
-  crcs checked, with no device round trip (the TPU engine would decode
-  in HBM and then pay a device->host transfer of the raw volume; it
-  serves the device-resident consumption path, engine.DeviceStream).
+  crcs checked, with no device round trip (the device engine would
+  decode in device memory and then pay a device->host transfer of the
+  raw volume; it serves the device-resident consumption path,
+  engine.DeviceStream).
   set_engine('jax') still forces the device path, and pins/markov/
   label-query streams the native decoder rejects fall through to it.
   """
@@ -504,7 +501,7 @@ def _full_decode(binary: bytes, z_start: int, z_end: int,
     out = _native()
     if out is not None:
       return out
-  if _jax_engine_enabled():
+  if device_path_on():
     from .kernels import engine as _engine
     out = _engine.decode_window(binary, z_start, z_end, label=label)
     if out is not None:
@@ -718,14 +715,14 @@ def compress(labels: np.ndarray, allow_pins: int = 0,
   if labels.ndim > 3:
     raise ValueError(f"{labels.ndim}d arrays are not supported.")
 
-  # Device-resident input (jax array), or engine forced to 'jax':
-  # run the per-voxel encode stages (VCG, CCL, label tables, CRC32C)
-  # batched on the TPU; only the serial DFS trace runs on host
-  # (kernels/encode.py). Falls through to the host path on any
-  # ineligibility.
+  # Device-resident input (jax array) with the device path on, or
+  # engine forced to 'jax': run the per-voxel encode stages (VCG, CCL,
+  # label tables, CRC32C) batched on the device; only the serial DFS
+  # trace runs on host (kernels/encode.py). Falls through to the host
+  # path on any ineligibility.
   is_device_arr = not isinstance(labels, np.ndarray) \
     and hasattr(labels, 'devices')
-  if ((is_device_arr or _ENGINE == 'jax')
+  if ((is_device_arr or _ENGINE == 'jax') and device_path_on()
       and labels.ndim == 3 and not allow_pins
       and markov_model_order == 0):
     from .kernels import encode as _enc
@@ -738,7 +735,7 @@ def compress(labels: np.ndarray, allow_pins: int = 0,
   if is_device_arr:
     # the device-encode path writes fortran_order=True for device
     # arrays; keep the same convention when the host path handles one
-    # (u64 / pins / markov>0 / non-TPU backend) so identical logical
+    # (u64 / pins / markov>0 / device path off) so identical logical
     # input yields identical header flags and memory order
     labels = np.asfortranarray(np.asarray(labels))
 

@@ -1,4 +1,4 @@
-"""CRC32C on the TPU as bit-linear algebra.
+"""CRC32C on the device as bit-linear algebra.
 
 CRC is linear over GF(2): with R0(m) = the register after folding
 message m into a ZERO-initialised register, and A = the advance-by-
@@ -9,8 +9,8 @@ one-zero-byte 32x32 GF(2) matrix,
 and R0 satisfies R0(m1 ++ m2) = A^len(m2)(R0(m1)) XOR R0(m2), with
 R0 of an all-zero prefix = 0 (leading zeros are free). That turns
 per-slice CRC32C of the decoded CCL images (the format's per-slice
-integrity words, README.md:233-253, crackle.hpp:599-611) into MXU
-work with a FIXED-SIZE table:
+integrity words, README.md:233-253, crackle.hpp:599-611) into
+matrix products with a FIXED-SIZE table:
 
   1. front-pad each (W,)-word message with zero words to a multiple
      of W_BLK and split into blocks;
@@ -23,12 +23,15 @@ work with a FIXED-SIZE table:
      (n, 32) @ (32, 32) GF(2) matmuls against precomputed A^(2^l)
      advance matrices.
 
-Table memory is 2 KB/word * W_BLK (bf16) regardless of message
-length; the host-side numpy intermediates are O(W_BLK) as well.
+Operands are bf16 0/1 values with float32 accumulation, so every
+product is exact on any backend (tensor cores included: TF32 rounding
+never applies to bf16 inputs). Table memory is 2 KB/word * W_BLK
+(bf16) regardless of message length; the host-side numpy
+intermediates are O(W_BLK) as well.
 
 The reference computes these CRCs serially via hardware/table kernels
-(third_party/fastcrc); this is the TPU-native equivalent, letting the
-HBM-resident serving path (engine.DeviceStream) verify stream
+(third_party/fastcrc); this is the data-parallel equivalent, letting
+the device-resident serving path (engine.DeviceStream) verify stream
 integrity without a device->host round trip.
 """
 import functools

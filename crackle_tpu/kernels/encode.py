@@ -6,8 +6,8 @@ runs on device:
 
   * boundary extraction: the voxel connectivity graph of a label
     volume is pure elementwise comparison,
-  * per-slice CCL with format-normative numbering (the Pallas sweep
-    kernel, shared with decode),
+  * per-slice CCL with format-normative numbering (the sweep CCL
+    shared with decode),
   * format choice statistics (pixel_pairs, max label) as reductions,
   * per-label/per-component histograms for the label map.
 
@@ -55,9 +55,9 @@ def ccl_from_labels(labels_zyx, sx: int, sy: int):
 
   Returns (cc (B, sy*sx) int32, N (B,) int32) identical to the host
   ops.ccl.connected_components_slice numbering."""
-  from . import ccl_pallas
+  from . import decode as _dec
   vcg = labels_to_vcg(labels_zyx, sx, sy)
-  return ccl_pallas.ccl_batch(vcg, sx, sy)
+  return _dec._ccl_batch(vcg, sx, sy)
 
 
 @jax.jit
@@ -100,29 +100,15 @@ def component_labels(labels_zyx, cc, N, sx: int, sy: int):
 # full device encode (flat labels, markov 0)
 # ---------------------------------------------------------------------------
 
-def _use_device_encode() -> bool:
-  from . import ccl_pallas
-  if ccl_pallas._NO_PALLAS:
-    return False
-  if ccl_pallas.INTERPRET:
-    return True
-  return jax.default_backend() == "tpu"
-
-
 @functools.partial(jax.jit, static_argnames=("sx", "sy", "wide"))
 def _encode_stage1(planes, sx: int, sy: int, wide: bool):
   """Per-voxel encode stages on device: VCG + CCL + per-slice crc32c
   + flat num_pairs/max reductions.
 
   planes: (B, sy, sx) int32 label batch, or a (planes_lo, planes_hi)
-  tuple for 64-bit labels carried as two int32 planes (the kernels
-  never need x64 on device).
-
-  Backend-agnostic: CCL dispatches through ccl_pallas.ccl_batch, so
-  the same traced step runs the Pallas sweep kernel on TPU and the
-  XLA segmented-scan fallback on CPU meshes (e.g. the driver's
-  8-virtual-device dryrun)."""
-  from . import ccl_pallas, crc32c_tpu
+  tuple for 64-bit labels carried as two int32 planes (the encode
+  never needs 64-bit arrays on device)."""
+  from . import crc, decode as _dec
   if wide:
     lo, hi = planes
     B = lo.shape[0]
@@ -147,8 +133,8 @@ def _encode_stage1(planes, sx: int, sy: int, wide: bool):
          | (left.astype(jnp.uint8) << 1)
          | (down.astype(jnp.uint8) << 2)
          | (up.astype(jnp.uint8) << 3)).reshape(B, sy * sx)
-  cc, N = ccl_pallas.ccl_batch(vcg, sx, sy)
-  crcs = crc32c_tpu.crc32c_device(cc.reshape(B, sy * sx))
+  cc, N = _dec._ccl_batch(vcg, sx, sy)
+  crcs = crc.crc32c_device(cc.reshape(B, sy * sx))
   # flat F-order pixel pairs within the window (x-fastest; includes
   # the row/slice wrap pairs, lib.hpp pixel_pairs parity)
   flat = a.reshape(B * sy * sx)
@@ -175,24 +161,21 @@ def _pack_vcg_nibbles(vcg):
 
 def encode_flat_device(labels, parallel: int = 0,
                        fortran_order: bool = True):
-  """TPU-path compress for flat labels / markov 0: the per-voxel
+  """Device-path compress for flat labels / markov 0: the per-voxel
   stages (boundary VCG, first-visit CCL, per-component source-label
   tables, per-slice CRC32C, format-choice reductions) run batched on
   device; the host tail is the intrinsically serial per-slice DFS
   trace (native, from the fetched VCG) plus byte assembly — the
-  TPU-native analog of the reference's thread-pooled encode
-  (crackcodes.hpp:498-521, labels.hpp:30-155).
+  data-parallel analog of the reference's thread-pooled encode
+  (crackcodes.hpp:498-521, labels.hpp:30-155). The caller decides
+  whether the device path is on (codec.device_path_on).
 
   labels: (sx, sy, sz) unsigned array (numpy or jax, any order).
   Returns the complete .ckl bytes, or None when the shape/stream
   needs the host path (caller falls back)."""
-  from . import ccl_pallas
-  from .. import codec as _codec
-  from ..headers import (CrackleHeader, CrackFormat, LabelFormat)
-  from ..lib import (compute_byte_width, width2dtype, crc32c, itoc)
   from .. import native
 
-  if not (_use_device_encode() and native.available()):
+  if not native.available():
     return None
 
   if isinstance(labels, jnp.ndarray) and not isinstance(
@@ -203,7 +186,7 @@ def encode_flat_device(labels, parallel: int = 0,
     labels = np.asarray(labels)
     sx, sy, sz = labels.shape
     np_dtype = labels.dtype
-  if sx * sy * sz == 0 or not ccl_pallas.use_pallas(sx, sy):
+  if sx * sy * sz == 0:
     return None
 
   wide = np_dtype.itemsize == 8

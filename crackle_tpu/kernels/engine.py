@@ -1,10 +1,9 @@
-"""Host glue for the TPU decode engine: parses the container sections,
+"""Host glue for the JAX decode engine: parses the container sections,
 pads per-slice crack streams into fixed-shape device arrays (bucketed
-to limit recompiles), launches the batched kernels, and assembles the
-output volume."""
+to limit recompiles), launches the batched decode programs, and
+assembles the output volume."""
 import functools
 import logging
-import os as _os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,13 +38,10 @@ def _next_pow2(x: int) -> int:
 # try chain-aligned virtual-slice splitting (prepare_split_inputs);
 # only when a SINGLE chain exceeds the cap (binary-noise class: the
 # crack graph is one connected component holding ~95% of the stream)
-# does the window fall back to the native host decoder — both the
-# chunked Pallas replay and the XLA pipeline hit multi-ten-minute
-# compiles at R = CAP/128 >= 4096 (BENCH_NOTES "compile-time
-# cliffs"), and the XLA path's dense MXU scatter is O(N * bins) at
-# bins = CAP, so such streams are outside the device win anyway.
-MAX_DEVICE_CAP = int(_os.environ.get("CRACKLE_TPU_MAX_DEVICE_CAP",
-                                     1 << 17))
+# does the window fall back to the native host decoder. The value is
+# inherited from an earlier accelerator backend, where compile time
+# grew steeply above it; it has not been measured on the GPU.
+MAX_DEVICE_CAP = 1 << 17
 
 
 def _device_cap_ok(inputs) -> bool:
@@ -59,7 +55,7 @@ def prepare_slice_inputs(binary: bytes, z_start: int, z_end: int):
   (the bitstream is serial per slice, like the reference's
   markov.hpp:268-323) and re-pack to the 2-bit layout the device
   replay unpacks; everything downstream (scope matching, position
-  replay, VCG paint, CCL, label paint) still runs on the TPU.
+  replay, VCG paint, CCL, label paint) still runs on the device.
   """
   head = _codec.header(binary)
   markov = head.markov_model_order > 0
@@ -249,15 +245,13 @@ def _split_ccl_step(packed, nbytes, nodes, n_chains, piece_z, sx, sy,
   merged = jnp.zeros((B, sy * sx), pres.dtype)
   merged = merged.at[piece_z].max(pres)
   vcg = merged if permissible else merged ^ 0b1111
-  from . import ccl_pallas
-  return ccl_pallas.ccl_batch(vcg, sx, sy)
+  return _dec._ccl_batch(vcg, sx, sy)
 
 
 def _decode_ccl_split(binary: bytes, z_start: int, z_end: int):
   """Device decode of a window whose slices exceed MAX_DEVICE_CAP:
   virtual-slice pieces replay to VCG presence on device, merge with a
-  per-slice OR, then the normal CCL kernels run on the merged
-  rasters."""
+  per-slice OR, then the normal CCL runs on the merged rasters."""
   res = prepare_split_inputs(binary, z_start, z_end)
   if res is None:
     return None
@@ -277,7 +271,7 @@ def _decode_ccl_split(binary: bytes, z_start: int, z_end: int):
 def decode_window_ccl_device(binary: bytes, z_start: int, z_end: int):
   """Decode a z window to per-slice first-visit CCL images that STAY
   on device. Returns (cc (B, sy*sx) int32, N (B,) int32, head) —
-  the batched input for device analytics (kernels/stats_pallas.py)."""
+  the batched input for device analytics (kernels/stats.py)."""
   inputs = prepare_slice_inputs(binary, z_start, z_end)
   if inputs is None or not _device_cap_ok(inputs):
     if inputs is not None:
@@ -311,18 +305,26 @@ def decode_window_ccl(binary: bytes, z_start: int, z_end: int,
   cc, N, head = res
   cc = np.asarray(cc)
   N = np.asarray(N)
-
-  if check_crcs and head.format_version > 0:
-    stored = _codec.crack_crcs(binary)
-    for i, z in enumerate(range(z_start, z_end)):
-      computed = crc32c(np.ascontiguousarray(cc[i].astype('<u4')))
-      if computed != int(stored[z]):
-        from ..headers import FormatError
-        raise FormatError(
-          f"crackle: crack code crc mismatch on z={z} "
-          f"computed: {computed} stored: {int(stored[z])}"
-        )
+  if check_crcs:
+    _check_crcs_host(binary, head, cc, z_start, z_end)
   return cc, N
+
+
+def _check_crcs_host(binary: bytes, head, cc: np.ndarray, z_start: int,
+                     z_end: int) -> None:
+  """Compare host crc32c of each fetched CCL image with the stored
+  per-slice crack crc; raises FormatError on the first mismatch."""
+  if head.format_version == 0:
+    return
+  stored = _codec.crack_crcs(binary)
+  for i, z in enumerate(range(z_start, z_end)):
+    computed = crc32c(np.ascontiguousarray(cc[i].astype('<u4')))
+    if computed != int(stored[z]):
+      from ..headers import FormatError
+      raise FormatError(
+        f"crackle: crack code crc mismatch on z={z} "
+        f"computed: {computed} stored: {int(stored[z])}"
+      )
 
 
 def _flat_label_tables(head, binary):
@@ -422,7 +424,7 @@ def decode_window_device(binary: bytes, z_start: int, z_end: int):
   """Fused device decode of a z window: everything stays on device.
 
   Returns (labels (B, sy*sx) device array, cc, N, head) — the
-  TPU-native consumption path (decoded segmentation feeds downstream
+  device consumption path (decoded segmentation feeds downstream
   device code without a host roundtrip) — or None for fallback
   streams."""
   head = _codec.header(binary)
@@ -453,83 +455,67 @@ def decode_window_device(binary: bytes, z_start: int, z_end: int):
   if inputs is None or not _device_cap_ok(inputs):
     return _fallback("decode_window_device",
                      "stream exceeds MAX_DEVICE_CAP")
-  uniq, cum, keys = _flat_label_tables(head, binary)
-  wide = uniq.dtype.itemsize > 4
   permissible = head.crack_format == CrackFormat.PERMISSIBLE
-
-  from . import ccl_pallas
-  n_per_slice = cum[z_start + 1:z_end + 1] - cum[z_start:z_end]
-  max_n = int(n_per_slice.max()) if len(n_per_slice) else 1
-  cap_n = _next_pow2(max(max_n, 8))
-  if (ccl_pallas.use_pallas(head.sx, head.sy)
-      and cap_n <= ccl_pallas.PAINT_CAP_N):
-    # in-kernel plant paint: build per-slice painted-value tables;
-    # u64 labels paint as two int32 planes
-    t64 = uniq.astype(np.uint64)[keys.astype(np.int64)]
-    idx = (cum[z_start:z_end, None]
-           + np.arange(cap_n)[None, :]).astype(np.int64)
-    planes = [(t64 & 0xffffffff).astype(np.uint32).view(np.int32)]
-    if wide:
-      planes.append((t64 >> 32).astype(np.uint32).view(np.int32))
-    T = np.stack([
-      np.concatenate([p, np.zeros(cap_n, np.int32)])[idx]
-      for p in planes
-    ], axis=1)  # (B, K, cap_n)
-    labels, cc, N = _dec.decode_slices_full_plant(
-      jnp.asarray(inputs["packed"]), jnp.asarray(inputs["nbytes"]),
-      jnp.asarray(inputs["nodes"]), jnp.asarray(inputs["n_chains"]),
-      jnp.asarray(T),
-      sx=head.sx, sy=head.sy, permissible=permissible,
-    )
-    return labels, cc, N, head
-  if wide:
-    return _fallback("decode_window_device",
-                     "u64 labels without the plant kernel")
-
+  offs, keys, lo, hi = _flat_device_tables(head, binary)
   labels, cc, N = _dec.decode_slices_full(
     jnp.asarray(inputs["packed"]), jnp.asarray(inputs["nbytes"]),
     jnp.asarray(inputs["nodes"]), jnp.asarray(inputs["n_chains"]),
-    jnp.asarray(cum[z_start:z_end].astype(np.int32)),
-    jnp.asarray(keys.astype(np.int32)),
-    jnp.asarray(uniq.astype(np.uint32)),
+    jnp.asarray(offs[z_start:z_end]), keys, lo, hi,
     sx=head.sx, sy=head.sy, permissible=permissible,
   )
   return labels, cc, N, head
 
 
-class DeviceStream:
-  """A compressed crackle stream resident in device HBM.
+def _flat_device_tables(head, binary: bytes):
+  """Flat-format label tables for the device paint (decode.paint_flat):
+  per-slice key offsets (sz,) int32 numpy, and device arrays of keys
+  int32, uniq low words uint32 and uniq high words uint32 (None unless
+  the stored labels are wider than 32 bits)."""
+  uniq, cum, keys = _flat_label_tables(head, binary)
+  u64 = uniq.astype(np.uint64)
+  lo = jnp.asarray((u64 & 0xffffffff).astype(np.uint32))
+  hi = (jnp.asarray((u64 >> 32).astype(np.uint32))
+        if uniq.dtype.itemsize > 4 else None)
+  return (cum[:head.sz].astype(np.int32),
+          jnp.asarray(keys.astype(np.int32)), lo, hi)
 
-  The TPU-native serving path for the in-memory-compressed-array use
+
+class DeviceStream:
+  """A compressed crackle stream resident in device memory.
+
+  The device serving path for the in-memory-compressed-array use
   case (the reference keeps the compressed binary in host RAM and
   decodes cutouts on demand — array.py:32-341; CrackleRemoteArray
   array.py:342-448 is the ranged-read analog): upload the parsed
   sections once (~the compressed size, typically 1-3% of raw), then
-  every window decode runs entirely from HBM with no host transfer.
+  every window decode runs entirely from device memory with no host
+  transfer.
 
-  Only flat-label streams eligible for the plant-paint kernel are
-  accepted (upload_stream returns None otherwise; callers fall back
-  to the per-window h2d path)."""
+  Flat streams (u32 or u64 labels, any markov order) carry the
+  flat-format paint tables; condensed-pins streams carry their
+  per-slice pin/single tables instead."""
 
-  def __init__(self, head, packed, nbytes, nodes, n_chains, T,
-               permissible: bool, crcs=None, pins=None):
+  def __init__(self, head, packed, nbytes, nodes, n_chains,
+               permissible: bool, crcs=None, flat=None, pins=None):
     self.head = head
     self.packed = packed
     self.nbytes = nbytes
     self.nodes = nodes
     self.n_chains = n_chains
-    self.T = T
     self.permissible = permissible
     self.crcs = crcs  # (sz,) uint32 stored per-slice crack crc32cs
+    # flat streams: (key_offsets (sz,), keys, lo, hi) — the
+    # decode.paint_flat tables, hi None for labels <= 32 bits
+    self.flat = flat
     # pins streams: (pin_locs, pin_labs, single_ids, single_labs,
-    # bg32, cap_n) with the per-slice arrays HBM-resident
+    # bg32, cap_n) with the per-slice arrays device-resident
     self.pins = pins
 
   @property
   def nbytes_device(self) -> int:
     arrs = [self.packed, self.nbytes, self.nodes, self.n_chains]
-    if self.T is not None:
-      arrs.append(self.T)
+    if self.flat is not None:
+      arrs.extend(a for a in self.flat if a is not None)
     if self.pins is not None:
       arrs.extend(self.pins[:4])
     return sum(int(np.prod(a.shape)) * a.dtype.itemsize
@@ -537,14 +523,14 @@ class DeviceStream:
 
   def decode_window(self, z_start: int, z_end: int,
                     check_crcs: bool = False):
-    """Decode [z_start, z_end) from HBM. Returns (labels, cc, N) —
-    all device-resident, no host round trip.
+    """Decode [z_start, z_end) from device memory. Returns (labels,
+    cc, N) — all device-resident, no host round trip.
 
     check_crcs=True additionally verifies the per-slice crack CRC32Cs
-    ON DEVICE (kernels/crc32c_tpu.py: CRC as bit-linear MXU matmuls
-    against the stored words uploaded with the stream) and raises
-    FormatError on mismatch — integrity-checked serving with no
-    device->host transfer of the decoded volume."""
+    on the device (kernels/crc.py, against the stored words uploaded
+    with the stream) and raises FormatError on mismatch —
+    integrity-checked serving with no device->host transfer of the
+    decoded volume."""
     full = z_start == 0 and z_end == self.head.sz
 
     def win(a):
@@ -561,15 +547,16 @@ class DeviceStream:
         permissible=self.permissible, cap_n=cap_n,
       )
     else:
-      labels, cc, N = _dec.decode_slices_full_plant(
+      offs, keys, lo, hi = self.flat
+      labels, cc, N = _dec.decode_slices_full(
         win(self.packed), win(self.nbytes), win(self.nodes),
-        win(self.n_chains), win(self.T),
+        win(self.n_chains), win(offs), keys, lo, hi,
         sx=self.head.sx, sy=self.head.sy,
         permissible=self.permissible,
       )
     if check_crcs and self.crcs is not None:
-      from . import crc32c_tpu
-      got = crc32c_tpu.crc32c_device(cc)
+      from . import crc
+      got = crc.crc32c_device(cc)
       bad = jnp.flatnonzero(
         got != self.crcs[z_start:z_end], size=1, fill_value=-1)[0]
       bad = int(np.asarray(bad))
@@ -582,82 +569,40 @@ class DeviceStream:
 
 
 def upload_stream(binary: bytes) -> Optional[DeviceStream]:
-  """Parse a crackle stream and park it in HBM as a DeviceStream.
-  Returns None when the stream needs a fallback decode path."""
+  """Parse a crackle stream and park it in device memory as a
+  DeviceStream. Returns None when the stream needs a fallback decode
+  path."""
   head = _codec.header(binary)
-  if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
-    return _upload_pins_stream(head, binary)
-  if head.label_format != LabelFormat.FLAT:
+  if head.label_format not in (LabelFormat.FLAT,
+                               LabelFormat.PINS_VARIABLE_WIDTH):
     return _fallback("upload_stream",
-                     f"label format {head.label_format} != FLAT")
-  from . import ccl_pallas
+                     f"unsupported label format {head.label_format}")
   inputs = prepare_slice_inputs(binary, 0, head.sz)
   if inputs is None or not _device_cap_ok(inputs):
     return _fallback("upload_stream", "stream exceeds MAX_DEVICE_CAP")
-  uniq, cum, keys = _flat_label_tables(head, binary)
-  n_per_slice = cum[1:head.sz + 1] - cum[0:head.sz]
-  max_n = int(n_per_slice.max()) if len(n_per_slice) else 1
-  cap_n = _next_pow2(max(max_n, 8))
-  if not (ccl_pallas.use_pallas(head.sx, head.sy)
-          and cap_n <= ccl_pallas.PAINT_CAP_N):
-    return _fallback(
-      "upload_stream",
-      f"plant-paint ineligible (use_pallas="
-      f"{ccl_pallas.use_pallas(head.sx, head.sy)}, cap_n={cap_n})")
-  wide = uniq.dtype.itemsize > 4
-  t64 = uniq.astype(np.uint64)[keys.astype(np.int64)]
-  idx = (cum[0:head.sz, None]
-         + np.arange(cap_n)[None, :]).astype(np.int64)
-  planes = [(t64 & 0xffffffff).astype(np.uint32).view(np.int32)]
-  if wide:
-    planes.append((t64 >> 32).astype(np.uint32).view(np.int32))
-  T = np.stack([
-    np.concatenate([p, np.zeros(cap_n, np.int32)])[idx]
-    for p in planes
-  ], axis=1)  # (sz, K, cap_n)
+  flat = pins = None
+  if head.label_format == LabelFormat.FLAT:
+    offs, keys, lo, hi = _flat_device_tables(head, binary)
+    flat = (jnp.asarray(offs), keys, lo, hi)
+  else:
+    tables = _pins_device_tables(head, binary, 0, head.sz)
+    if tables is None:
+      return _fallback("upload_stream",
+                       "pins tables unavailable (stored width > 4)")
+    pin_locs, pin_labs, single_ids, single_labs, bg32, cap_n = tables
+    pins = (jnp.asarray(pin_locs), jnp.asarray(pin_labs),
+            jnp.asarray(single_ids), jnp.asarray(single_labs),
+            bg32, cap_n)
   crcs = None
   if head.format_version > 0:
-    stored = _codec.crack_crcs(binary)
-    if stored is not None:
-      crcs = jnp.asarray(np.asarray(stored, dtype='<u4'))
+    crcs = jnp.asarray(np.asarray(_codec.crack_crcs(binary),
+                                  dtype='<u4'))
   return DeviceStream(
     head,
     jnp.asarray(inputs["packed"]), jnp.asarray(inputs["nbytes"]),
     jnp.asarray(inputs["nodes"]), jnp.asarray(inputs["n_chains"]),
-    jnp.asarray(T),
     permissible=head.crack_format == CrackFormat.PERMISSIBLE,
-    crcs=crcs,
-  )
-
-
-def _upload_pins_stream(head, binary: bytes):
-  """Park a condensed-pins stream in HBM: packed crack sections plus
-  the per-slice pin/single scatter tables, so window serving needs no
-  further host parsing or h2d (the flat-stream DeviceStream story,
-  labels.hpp:508-617 decode parity)."""
-  inputs = prepare_slice_inputs(binary, 0, head.sz)
-  if inputs is None or not _device_cap_ok(inputs):
-    return _fallback("upload_stream", "stream exceeds MAX_DEVICE_CAP")
-  tables = _pins_device_tables(head, binary, 0, head.sz)
-  if tables is None:
-    return _fallback("upload_stream",
-                     "pins tables unavailable (stored width > 4)")
-  pin_locs, pin_labs, single_ids, single_labs, bg32, cap_n = tables
-  crcs = None
-  if head.format_version > 0:
-    stored = _codec.crack_crcs(binary)
-    if stored is not None:
-      crcs = jnp.asarray(np.asarray(stored, dtype='<u4'))
-  return DeviceStream(
-    head,
-    jnp.asarray(inputs["packed"]), jnp.asarray(inputs["nbytes"]),
-    jnp.asarray(inputs["nodes"]), jnp.asarray(inputs["n_chains"]),
-    None,
-    permissible=head.crack_format == CrackFormat.PERMISSIBLE,
-    crcs=crcs,
-    pins=(jnp.asarray(pin_locs), jnp.asarray(pin_labs),
-          jnp.asarray(single_ids), jnp.asarray(single_labs),
-          bg32, cap_n),
+    crcs=crcs, flat=flat, pins=pins,
   )
 
 
@@ -665,54 +610,31 @@ def decode_window(binary: bytes, z_start: int, z_end: int,
                   label: Optional[int] = None,
                   check_crcs: bool = True) -> Optional[np.ndarray]:
   """Full device decode of a z window. Returns the (sx, sy, szr)
-  volume or None if the stream needs the numpy fallback."""
+  volume (a boolean mask when label is given) or None if the stream
+  needs the numpy fallback."""
   head = _codec.header(binary)
   if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
     if label is not None:
       return None  # single-label pins queries stay on the host path
-    res = decode_window_device(binary, z_start, z_end)
-    if res is None:
-      return None
-    labels_dev, cc_dev, _N, _ = res
-    out = np.asarray(labels_dev).astype(head.dtype, copy=False)
-    if check_crcs and head.format_version > 0:
-      stored = _codec.crack_crcs(binary)
-      cc = np.asarray(cc_dev)
-      for i, z in enumerate(range(z_start, z_end)):
-        computed = crc32c(np.ascontiguousarray(cc[i].astype('<u4')))
-        if computed != int(stored[z]):
-          from ..headers import FormatError
-          raise FormatError(
-            f"crackle: crack code crc mismatch on z={z} "
-            f"computed: {computed} stored: {int(stored[z])}"
-          )
-    vol = out.reshape(z_end - z_start, head.sy, head.sx) \
-      .transpose(2, 1, 0)
-    if head.fortran_order:
-      return np.asfortranarray(vol)
-    return np.ascontiguousarray(vol)
-  if head.label_format != LabelFormat.FLAT:
+  elif head.label_format != LabelFormat.FLAT:
     return None
-
-  B = z_end - z_start
-  uniq, cum, keys = _flat_label_tables(head, binary)
 
   res = decode_window_device(binary, z_start, z_end) \
     if label is None else None
   if res is not None:
-    labels_dev, cc_dev, N_dev, _ = res
+    labels_dev, cc_dev, _N, _ = res
     out = np.asarray(labels_dev).astype(head.dtype, copy=False)
     cc = np.asarray(cc_dev) if check_crcs else None
   else:
-    if label is None and uniq.dtype.itemsize > 4:
-      return None  # host numpy paint is faster than a device gather
+    if head.label_format != LabelFormat.FLAT:
+      return None
     res = decode_window_ccl(binary, z_start, z_end, check_crcs=False)
     if res is None:
       return None
-    cc, N = res
+    cc, _N = res
+    uniq, cum, keys = _flat_label_tables(head, binary)
     key_idx = np.asarray(_dec.paint_keys(
-      jnp.asarray(cc), jnp.asarray(N),
-      jnp.asarray(cum[z_start:z_end].astype(np.int32)),
+      jnp.asarray(cc), jnp.asarray(cum[z_start:z_end].astype(np.int32)),
       jnp.asarray(keys.astype(np.int32)),
     ))
     if label is not None:
@@ -722,18 +644,10 @@ def decode_window(binary: bytes, z_start: int, z_end: int,
     else:
       out = uniq[key_idx].astype(head.dtype, copy=False)
 
-  if check_crcs and head.format_version > 0 and cc is not None:
-    stored = _codec.crack_crcs(binary)
-    for i, z in enumerate(range(z_start, z_end)):
-      computed = crc32c(np.ascontiguousarray(cc[i].astype('<u4')))
-      if computed != int(stored[z]):
-        from ..headers import FormatError
-        raise FormatError(
-          f"crackle: crack code crc mismatch on z={z} "
-          f"computed: {computed} stored: {int(stored[z])}"
-        )
+  if check_crcs:
+    _check_crcs_host(binary, head, cc, z_start, z_end)
 
-  vol = out.reshape(B, head.sy, head.sx).transpose(2, 1, 0)
+  vol = out.reshape(z_end - z_start, head.sy, head.sx).transpose(2, 1, 0)
   if head.fortran_order:
     return np.asfortranarray(vol)
   return np.ascontiguousarray(vol)

@@ -1,6 +1,6 @@
 """Low-level byte plumbing for the .ckl container format.
 
-TPU-native rebuild of seung-lab/crackle. This module is the host-side
+JAX rebuild of seung-lab/crackle. This module is the host-side
 serialization layer (reference parity: src/lib.hpp, src/crc.hpp,
 crackle/lib.py). Everything here is little-endian byte twiddling that
 frames the device-computed payloads.
@@ -18,7 +18,9 @@ except ImportError:  # pragma: no cover
 # CRC32C (Castagnoli). The reference computes the standard CRC-32C
 # (init 0xFFFFFFFF, reflected, final xor) via third_party/fastcrc
 # (crc32_impl called with acc=0, which internally inverts on entry/exit).
-# google_crc32c produces the identical value.
+# google_crc32c produces the identical value; without it the native
+# library's crc32c does, and the byte loop below only serves when the
+# native library cannot be built.
 # ---------------------------------------------------------------------------
 
 def _make_crc32c_table():
@@ -49,6 +51,10 @@ def crc32c(buffer: Union[bytes, bytearray, memoryview, np.ndarray]) -> int:
     buffer = bytes(buffer)
   if _HAS_GOOGLE_CRC:
     return int.from_bytes(_g_crc32c.Checksum(buffer).digest(), 'big')
+  from . import native
+  crc = native.crc32c(buffer)
+  if crc is not None:
+    return crc
   return _crc32c_py(buffer)
 
 def crc8(data: Union[bytes, bytearray, memoryview]) -> int:

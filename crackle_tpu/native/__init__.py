@@ -21,15 +21,24 @@ _tried = False
 
 
 def _build() -> bool:
+  # build beside the target and rename into place, so a process that
+  # loads the library never sees a half-written file from another
+  tmp = f"{_LIB}.{os.getpid()}.tmp"
   try:
     cmd = [
       "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-      _SRC, "-o", _LIB,
+      _SRC, "-o", tmp,
     ]
     res = subprocess.run(cmd, capture_output=True, timeout=120)
-    return res.returncode == 0
-  except Exception:
+    if res.returncode != 0:
+      return False
+    os.replace(tmp, _LIB)
+    return True
+  except (OSError, subprocess.SubprocessError):
     return False
+  finally:
+    if os.path.exists(tmp):
+      os.remove(tmp)
 
 
 def load():
@@ -79,6 +88,8 @@ def load():
   lib.crackle_markov_encode.argtypes = [p, i64, p, i64, p, i64]
   lib.crackle_decompress_stream.restype = i64
   lib.crackle_decompress_stream.argtypes = [p, i64, i64, i64, p, i64]
+  lib.crackle_crc32c.restype = ctypes.c_uint32
+  lib.crackle_crc32c.argtypes = [p, i64]
   lib.crackle_compress_stream.restype = i64
   lib.crackle_compress_stream.argtypes = [
     p, i32, i64, i64, i64, i32, p, i64,
@@ -316,6 +327,15 @@ def markov_encode(diffs: np.ndarray, model: np.ndarray, order: int):
   if n < 0:
     return None
   return out[:n].tobytes()
+
+
+def crc32c(data: bytes):
+  """Standard CRC-32C of a bytes object, or None if the library is
+  unavailable."""
+  lib = load()
+  if lib is None:
+    return None
+  return int(lib.crackle_crc32c(data, len(data)))
 
 
 def decompress_stream(binary: bytes, z_start: int, z_end: int,

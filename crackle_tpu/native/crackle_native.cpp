@@ -1,6 +1,6 @@
 // Native host kernels for crackle_tpu.
 //
-// The TPU owns the data-parallel decode path; these C++ routines cover
+// The device owns the data-parallel decode path; these C++ routines cover
 // the intrinsically serial host-side hot loops (the reference keeps
 // them in C++ too): the crack-code DFS trace on encode, union-find CCL
 // raster scans, VCG replay for the host decode fallback, and the
@@ -331,7 +331,7 @@ int64_t crackle_trace_slice(
 // connectivity graph (bits +x, -x, +y, -y PASSABLE = labels equal,
 // the device boundary-extraction output, kernels/encode.py
 // labels_to_vcg) instead of the label image. This is the host tail
-// of the device encode: the TPU computes the VCG/CCL/label tables;
+// of the device encode: the device computes the VCG/CCL/label tables;
 // only the intrinsically serial DFS trace runs here.
 int64_t crackle_trace_slice_vcg(
   const uint8_t* vcg,             // sx*sy, flat x-fastest
@@ -1003,6 +1003,12 @@ int parse_header(const uint8_t* b, size_t n, Header& h) {
 }  // namespace
 
 extern "C" {
+
+// Standard CRC-32C of a byte buffer (lib.crc32c's fallback when the
+// google_crc32c package is absent).
+uint32_t crackle_crc32c(const uint8_t* data, int64_t n) {
+  return crc32c(data, (size_t)n);
+}
 
 // Decompress a full v1 flat-label stream into out (voxels *
 // data_width bytes, fortran order as flagged in the header).

@@ -56,41 +56,27 @@ def for_each_z(binary: bytes, z_start: int = -1, z_end: int = -1):
 
 
 # ---------------------------------------------------------------------------
-# batched device statistics (TPU fast path)
+# batched device statistics
 # ---------------------------------------------------------------------------
 
 _DEVICE_WINDOW = 256  # z slices per device stats batch
 
 
-def _use_device_stats() -> bool:
-  from ..kernels import ccl_pallas
-  if ccl_pallas._NO_PALLAS:
-    return False
-  if ccl_pallas.INTERPRET:
-    return True
-  import jax
-  return jax.default_backend() == "tpu"
-
-
 def _device_label_stats(binary: bytes):
   """Whole-volume per-(slice, component) stats on device.
 
-  Yields (stats (B, cap_n, 8) f32 numpy, key_idx (B, cap_n) int64,
+  Yields (stats (B, cap_n, 7) int64 numpy, key_idx (B, cap_n) int64,
   n_per (B,) int64, z0) per z window, plus the uniq table first:
   the first yield is (uniq,). Returns None-equivalent by yielding
   nothing when the stream is not eligible."""
-  from ..kernels import engine as _engine, stats_pallas, ccl_pallas
+  from ..kernels import engine as _engine, stats as _stats
   head = codec.header(binary)
   if head.label_format != LabelFormat.FLAT:
-    return
-  if not ccl_pallas.use_pallas(head.sx, head.sy):
     return
   uniq, cum, keys = _engine._flat_label_tables(head, binary)
   n_per = cum[1:] - cum[:-1]
   cap_n = _engine._next_pow2(
     max(int(n_per.max()) if head.sz else 1, 8))
-  if not stats_pallas.eligible(head.sx, head.sy, cap_n):
-    return
   yield (uniq,)
   for z0 in range(0, head.sz, _DEVICE_WINDOW):
     z1 = _min(z0 + _DEVICE_WINDOW, head.sz)
@@ -98,7 +84,7 @@ def _device_label_stats(binary: bytes):
     if res is None:
       return
     cc_dev, _N, _ = res
-    stats = np.asarray(stats_pallas.slice_stats(
+    stats = np.asarray(_stats.slice_stats(
       cc_dev, head.sx, head.sy, cap_n))
     B = z1 - z0
     key_idx = np.zeros((B, cap_n), np.int64)
@@ -133,14 +119,14 @@ def voxel_counts(binary: bytes, label: Optional[int] = None,
     vcts = {single: head.voxels()}
   else:
     vcts = None
-    if label is None and _use_device_stats():
+    if label is None and codec.device_path_on():
       dev = _device_stats_run(binary)
       if dev is not None:
-        from ..kernels.stats_pallas import CH_COUNT
+        from ..kernels.stats import CH_COUNT
         uniq, gen = dev
         agg = np.zeros(len(uniq), np.int64)
         for stats, key_idx, n_per, z0 in gen:
-          counts = stats[:, :, CH_COUNT].astype(np.int64)
+          counts = stats[:, :, CH_COUNT]
           mask = (np.arange(counts.shape[1])[None, :]
                   < np.asarray(n_per)[:, None])
           np.add.at(agg, key_idx[mask], counts[mask])
@@ -172,10 +158,10 @@ def centroids(binary: bytes, label: Optional[int] = None,
   head = codec.header(binary)
   sx = head.sx
 
-  if label is None and _use_device_stats():
+  if label is None and codec.device_path_on():
     dev = _device_stats_run(binary)
     if dev is not None:
-      from ..kernels.stats_pallas import CH_COUNT, CH_XSUM, CH_YSUM
+      from ..kernels.stats import CH_COUNT, CH_XSUM, CH_YSUM
       uniq, gen = dev
       agg = np.zeros((len(uniq), 4), np.float64)
       for stats, key_idx, n_per, z0 in gen:
@@ -243,10 +229,10 @@ def bounding_boxes(binary: bytes, label: Optional[int] = None,
     }
   else:
     bboxes = None
-    if label is None and _use_device_stats():
+    if label is None and codec.device_path_on():
       dev = _device_stats_run(binary)
       if dev is not None:
-        from ..kernels.stats_pallas import (
+        from ..kernels.stats import (
           CH_XMIN, CH_XMAX, CH_YMIN, CH_YMAX)
         uniq, gen = dev
         INT = np.int64(np.iinfo(np.int64).max)
@@ -259,16 +245,11 @@ def bounding_boxes(binary: bytes, label: Optional[int] = None,
           zs = np.broadcast_to(
             (z0 + np.arange(B))[:, None], mask.shape)
           ki = key_idx[mask]
-          # pads carry +3e38 sentinels; clip before the int cast
-          xmn = np.minimum(stats[:, :, CH_XMIN], 2.0**31)
-          ymn = np.minimum(stats[:, :, CH_YMIN], 2.0**31)
-          np.minimum.at(mins[:, 0], ki, xmn.astype(np.int64)[mask])
-          np.minimum.at(mins[:, 1], ki, ymn.astype(np.int64)[mask])
+          np.minimum.at(mins[:, 0], ki, stats[:, :, CH_XMIN][mask])
+          np.minimum.at(mins[:, 1], ki, stats[:, :, CH_YMIN][mask])
           np.minimum.at(mins[:, 2], ki, zs[mask])
-          np.maximum.at(maxs[:, 0], ki,
-                        stats[:, :, CH_XMAX].astype(np.int64)[mask])
-          np.maximum.at(maxs[:, 1], ki,
-                        stats[:, :, CH_YMAX].astype(np.int64)[mask])
+          np.maximum.at(maxs[:, 0], ki, stats[:, :, CH_XMAX][mask])
+          np.maximum.at(maxs[:, 1], ki, stats[:, :, CH_YMAX][mask])
           np.maximum.at(maxs[:, 2], ki, zs[mask])
         bboxes = {
           int(lbl): np.array(

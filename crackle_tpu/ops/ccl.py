@@ -7,8 +7,8 @@ crack CRCs both depend on this numbering, so it is normative.
 
 The reference uses a sequential two-pass union-find raster scan. Here we
 use a data-parallel formulation (edge list -> union-find via
-scipy.sparse.csgraph on host; iterative min-propagation on TPU in
-kernels/ccl_jax.py) followed by a first-visit renumbering pass, which
+scipy.sparse.csgraph on host; iterative min-propagation on the
+device in kernels/decode.py) followed by a first-visit renumbering pass, which
 provably produces the identical labeling.
 
 All functions operate on flat 1D arrays in x-fastest order (the format's

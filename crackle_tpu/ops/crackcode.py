@@ -14,7 +14,7 @@ remove_initial_branch, remove_spurious_branches).
 
 The decoder here is a NEW data-parallel formulation (unlike the
 reference's sequential state machines) so the same math runs
-vectorized on host numpy and on TPU:
+vectorized on host numpy and on the device:
 
   1. symbol classification: a codepoint is the second half of a b/t
      pair iff it reverses its predecessor AND the predecessor is not

@@ -4,7 +4,7 @@ The codec's parallel axis is z: slices are independent streams, so
 decode and the per-slice analytics shard data-parallel over a 1-D
 device mesh with no communication; the cross-slice reductions
 (label dictionaries, histograms, stream assembly) use XLA collectives
-(all_gather / psum) over ICI.
+(all_gather / psum) between the devices.
 
 This replaces the reference's shared-memory thread pool
 (threadpool.hpp) as the scaling mechanism; see SURVEY.md section 2.5.
@@ -131,11 +131,7 @@ def sharded_decode_labels(binary: bytes, z_start: int, z_end: int,
       cc, _N = _dec.decode_slices_to_ccl.__wrapped__(
         packed, nbytes, nodes, n_chains, sx=head.sx, sy=head.sy,
         permissible=permissible)
-      ki = keys[cc + offs[:, None]]
-      labels = lo[ki].astype(jnp.uint64)
-      if wide:
-        labels = labels | (hi[ki].astype(jnp.uint64) << 32)
-      return labels if wide else lo[ki]
+      return _dec.paint_flat(cc, offs, keys, lo, hi if wide else None)
 
     fn = jax.jit(jax.shard_map(
       step, mesh=mesh,
@@ -210,7 +206,8 @@ def decompress_sharded(binary: bytes, mesh: Optional[Mesh] = None
 def voxel_counts_sharded(binary: bytes, mesh: Optional[Mesh] = None
                          ) -> Optional[dict]:
   """Per-label voxel counts with the histogram reduced across the mesh
-  via psum (the TPU equivalent of the reference's mutex-merged maps)."""
+  via psum (the data-parallel equivalent of the reference's
+  mutex-merged maps)."""
   if mesh is None:
     mesh = make_mesh()
   axis = mesh.axis_names[0]
@@ -273,13 +270,12 @@ def compress_sharded(labels: np.ndarray, mesh: Optional[Mesh] = None,
   unpadded flat volume, kernels/encode.assemble_flat_stream) splices
   the result. Byte-identical to single-process codec.compress.
 
-  Backend-agnostic: the per-voxel step runs the Pallas sweep CCL on
-  TPU and the XLA segmented-scan CCL on CPU meshes (the dispatch is
-  inside kernels/encode._encode_stage1), so the driver's virtual-CPU
-  dryrun exercises the real shard_map structure. 64-bit labels are
-  carried as (lo32, hi32) planes on device.
+  Backend-agnostic: the per-voxel step is plain XLA, so a mesh of
+  virtual CPU devices exercises the same shard_map structure as a
+  mesh of GPUs. 64-bit labels are carried as (lo32, hi32) planes on
+  device.
 
-  This is the TPU-native analog of the reference's thread-pooled
+  This is the data-parallel analog of the reference's thread-pooled
   encode (crackcodes.hpp:498-521 / labels.hpp:30-155): slices are the
   parallel axis; the only cross-shard communication is the (host-side)
   dictionary merge, exactly the SURVEY §2.5 mapping."""

@@ -1,5 +1,5 @@
 """Tracing/profiling helpers (SURVEY section 5: the reference has no
-in-tree tracing; the TPU build uses the jax profiler instead)."""
+in-tree tracing; the device path uses the jax profiler instead)."""
 import contextlib
 import time
 from typing import Optional

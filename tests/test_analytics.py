@@ -262,28 +262,32 @@ def test_save_load(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# batched device statistics (kernels/stats_pallas.py)
+# batched device statistics (kernels/stats.py)
 # ---------------------------------------------------------------------------
 
 def test_device_stats_match_host(monkeypatch):
   """voxel_counts / centroids / bounding_boxes through the device
-  stripe-windowed stats kernel must equal the host loop exactly."""
-  import jax
+  segment-reduction stats must equal the host loop exactly."""
   import crackle_tpu.ops.analytics as A
-  from crackle_tpu.kernels import ccl_pallas
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
-  jax.clear_caches()
+  from crackle_tpu import codec
 
   vol = random_volume((40, 24, 6), 7, 51, 5)
   binary = crackle.compress(vol)
+  calls = []
+  real = A._device_stats_run
+  monkeypatch.setattr(A, "_device_stats_run",
+                      lambda b: calls.append(1) or real(b))
+  monkeypatch.setattr(codec, "_ENGINE", "jax")
   vc_d = A.voxel_counts(binary)
   cen_d = A.centroids(binary)
   bb_d = A.bounding_boxes(binary, no_slice_conversion=True)
+  assert len(calls) == 3
 
-  monkeypatch.setattr(A, "_use_device_stats", lambda: False)
+  monkeypatch.setattr(codec, "_ENGINE", "numpy")
   vc_h = A.voxel_counts(binary)
   cen_h = A.centroids(binary)
   bb_h = A.bounding_boxes(binary, no_slice_conversion=True)
+  assert len(calls) == 3
 
   assert vc_d == vc_h
   assert set(cen_d) == set(cen_h)
@@ -292,4 +296,3 @@ def test_device_stats_match_host(monkeypatch):
   assert set(bb_d) == set(bb_h)
   for k in bb_h:
     np.testing.assert_array_equal(bb_d[k], bb_h[k])
-  jax.clear_caches()

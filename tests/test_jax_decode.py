@@ -125,11 +125,8 @@ def test_jax_decode_pins_markov_window():
   np.testing.assert_array_equal(out, vol[:, :, 2:7])
 
 
-def test_jax_decode_u64_plant_interpret(monkeypatch):
-  """u64 labels paint as two int32 planes in the plant kernel; the
-  Pallas interpreter stands in for the TPU on CPU."""
-  from crackle_tpu.kernels import ccl_pallas
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+def test_jax_decode_u64_plant_interpret():
+  """u64 labels paint through the lo/hi planes of the flat paint."""
   vol = random_volume((16, 12, 3), 5, 91, 4).astype(np.uint64)
   vol = np.asfortranarray(vol + np.uint64(0x1_0000_0000))
   binary = crackle.compress(vol)
@@ -139,9 +136,7 @@ def test_jax_decode_u64_plant_interpret(monkeypatch):
   np.testing.assert_array_equal(out, vol)
 
 
-def test_jax_decode_u32_plant_interpret(monkeypatch):
-  from crackle_tpu.kernels import ccl_pallas
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+def test_jax_decode_u32_plant_interpret():
   vol = random_volume((16, 16, 4), 6, 95, 5)
   binary = crackle.compress(vol)
   out = engine.decode_window(binary, 0, 4)
@@ -149,39 +144,9 @@ def test_jax_decode_u32_plant_interpret(monkeypatch):
   np.testing.assert_array_equal(out, vol)
 
 
-@pytest.mark.parametrize("smooth", [0, 6])
-def test_jax_decode_replay_kernel_interpret(monkeypatch, smooth):
-  """The fused Pallas replay kernels (P1 keys / P2 replay+paint) must
-  match the XLA replay bit-for-bit; the volume is sized so CAP lands
-  in the replay-eligible range (>= 256 codepoints)."""
-  from crackle_tpu.kernels import ccl_pallas, replay_pallas, decode
-  import jax.numpy as jnp
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
-  vol = random_volume((64, 48, 3), 14, 123, smooth)
-  binary = crackle.compress(vol)
-  inputs = engine.prepare_slice_inputs(binary, 0, 3)
-  head = inputs["head"]
-  CAP = inputs["packed"].shape[1] * 4
-  assert replay_pallas.eligible(
-    CAP, inputs["nodes"].shape[1], head.sx, head.sy)
-  from crackle_tpu.headers import CrackFormat
-  permissible = head.crack_format == CrackFormat.PERMISSIBLE
-  args = (jnp.asarray(inputs["packed"]), jnp.asarray(inputs["nbytes"]),
-          jnp.asarray(inputs["nodes"]), jnp.asarray(inputs["n_chains"]))
-  vcg_pallas = np.asarray(replay_pallas.replay_vcg_traced(
-    *args, head.sx, head.sy, permissible))
-  vcg_xla = np.asarray(decode._decode_vcg_batch(
-    *args, head.sx, head.sy, permissible))
-  np.testing.assert_array_equal(vcg_pallas, vcg_xla)
-  out = engine.decode_window(binary, 0, 3)
-  np.testing.assert_array_equal(out, vol)
-
-
-def test_device_stream_decode_interpret(monkeypatch):
+def test_device_stream_decode_interpret():
   """upload_stream parks the parsed sections on device; window decodes
   must match the host oracle with no further host parsing."""
-  from crackle_tpu.kernels import ccl_pallas
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
   vol = random_volume((32, 24, 6), 9, 7, 4)
   binary = crackle.compress(vol)
   stream = engine.upload_stream(binary)
@@ -193,15 +158,30 @@ def test_device_stream_decode_interpret(monkeypatch):
     np.testing.assert_array_equal(got, vol[:, :, z0:z1])
 
 
+def test_device_stream_u64_windows():
+  """u64 flat streams serve from a DeviceStream with the lo/hi paint
+  and device crc checks."""
+  vol = random_volume((20, 14, 5), 6, 93, 4).astype(np.uint64)
+  vol = np.asfortranarray(vol * np.uint64(0x1_0000_0001))
+  binary = crackle.compress(vol)
+  stream = engine.upload_stream(binary)
+  assert stream is not None and stream.flat[3] is not None
+  for z0, z1 in [(0, 5), (1, 3)]:
+    labels, cc, N = stream.decode_window(z0, z1, check_crcs=True)
+    assert labels.dtype == np.uint64
+    got = np.asarray(labels).reshape(z1 - z0, 14, 20).transpose(2, 1, 0)
+    np.testing.assert_array_equal(got, vol[:, :, z0:z1])
+
+
 def test_device_crc32c_matches_reference():
-  """CRC32C as bit-linear MXU matmuls must equal the byte-serial
+  """CRC32C as bit-linear matrix products must equal the byte-serial
   reference implementation (lib.crc32c / src/crc.hpp semantics)."""
-  from crackle_tpu.kernels import crc32c_tpu
+  from crackle_tpu.kernels import crc
   from crackle_tpu.lib import crc32c
   rng = np.random.RandomState(5)
   for W in (1, 3, 129, 511, 512, 513, 4096):
     msgs = rng.randint(0, 2 ** 32, size=(4, W), dtype=np.uint32)
-    got = np.asarray(crc32c_tpu.crc32c_device(msgs.view(np.int32)))
+    got = np.asarray(crc.crc32c_device(msgs.view(np.int32)))
     want = np.array(
       [crc32c(np.ascontiguousarray(m.astype('<u4'))) for m in msgs],
       np.uint32)
@@ -212,24 +192,22 @@ def test_device_crc32c_large_message():
   """Messages with 32*W > 2^24 bit-count sums: the per-plane parity
   must stay exact (regression: a single f32 accumulator across all 32
   bitplanes rounds and corrupts the parity at this size)."""
-  from crackle_tpu.kernels import crc32c_tpu
+  from crackle_tpu.kernels import crc
   from crackle_tpu.lib import crc32c
   rng = np.random.RandomState(11)
   W = 600_001  # > 2^24 / 32, and not a multiple of the block size
   msgs = rng.randint(0, 2 ** 32, size=(2, W), dtype=np.uint32)
-  got = np.asarray(crc32c_tpu.crc32c_device(msgs.view(np.int32)))
+  got = np.asarray(crc.crc32c_device(msgs.view(np.int32)))
   want = np.array(
     [crc32c(np.ascontiguousarray(m.astype('<u4'))) for m in msgs],
     np.uint32)
   np.testing.assert_array_equal(got, want)
 
 
-def test_device_stream_crc_check(monkeypatch):
+def test_device_stream_crc_check():
   """DeviceStream.decode_window(check_crcs=True) verifies per-slice
   crack crcs on device and flags corruption."""
-  from crackle_tpu.kernels import ccl_pallas
   from crackle_tpu.headers import FormatError
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
   vol = random_volume((32, 24, 4), 7, 21, 4)
   binary = crackle.compress(vol)
   stream = engine.upload_stream(binary)
@@ -248,72 +226,13 @@ def test_device_stream_crc_check(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# generalized chunked replay (replay_big): wide slices, long streams
+# XLA replay and CCL against the numpy oracles (ops/crackcode, ops/ccl)
 # ---------------------------------------------------------------------------
 
-@pytest.fixture
-def force_big(monkeypatch):
-  """Route eligible streams through the generalized chunked replay
-  with tiny chunk rows so the carry logic is exercised, regardless of
-  stream size."""
-  import jax
-  from crackle_tpu.kernels import ccl_pallas, replay_pallas, replay_big
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
-  monkeypatch.setattr(replay_pallas, "FORCE_BIG", True)
-  monkeypatch.setattr(replay_big, "CHUNK_R", 2)
-  jax.clear_caches()  # dispatch is baked into traced functions
-  yield
-  jax.clear_caches()
-
-
-BIG_CASES = [
-  ((9, 9, 4), 4, 31, 0),
-  ((16, 16, 3), 5, 32, 4),     # impermissible, branches
-  ((16, 16, 3), 2, 33, 0),     # noisy -> permissible
-  ((33, 17, 3), 6, 34, 6),
-  ((8, 8, 2), 1, 35, 0),       # constant
-  ((5, 1, 3), 3, 36, 0),
-]
-
-
-@pytest.mark.parametrize("shape,nl,seed,smooth", BIG_CASES)
-def test_replay_big_matches_numpy(force_big, shape, nl, seed, smooth):
-  vol = random_volume(shape, nl, seed, smooth)
-  binary = crackle.compress(vol)
-  out = engine.decode_window(binary, 0, shape[2])
-  assert out is not None
-  np.testing.assert_array_equal(out, vol)
-
-
-@pytest.mark.parametrize("shape,nl,seed,smooth", [
-  ((513, 6, 2), 5, 41, 3),     # sx + 1 > 512: two paint segments
-  ((600, 9, 2), 7, 42, 4),
-  ((520, 5, 1), 2, 43, 0),
-])
-def test_replay_big_wide_slices(force_big, shape, nl, seed, smooth):
-  """sx >= 512 runs the segmented paint raster (plane-major bins,
-  cross-segment V carry); ineligible for the original fused kernel."""
-  from crackle_tpu.kernels import replay_big
-  assert replay_big._nseg(shape[0]) == 2
-  vol = random_volume(shape, nl, seed, smooth)
-  binary = crackle.compress(vol)
-  out = engine.decode_window(binary, 0, shape[2])
-  assert out is not None
-  np.testing.assert_array_equal(out, vol)
-
-
-def test_replay_big_long_scope_across_chunks(force_big):
-  """Round-3/4 regression: a move whose scope close lies beyond the
-  chunk lookahead row must fall through to the inter-chunk carry. The
-  old _scope_kernel's shift fill fabricated a depth-segment boundary
-  at every chunk seam, dropping those moves' cancellations (40/512
-  slices of the 512^3 bench corpus decoded wrong).
-
-  A square spiral path makes a region whose boundary is a single long
+def spiral_volume():
+  """A square spiral path: one region whose boundary is a single long
   branch-poor curve, so sorted depth segments span thousands of
-  events — with CHUNK_R=2 (256-codepoint windows) the move->close
-  span crosses many seams (3350 wrong VCG entries under the old
-  kernel)."""
+  events and moves unwind far from their scope opening."""
   vol = np.zeros((65, 65, 1), dtype=np.uint32)
   x0 = y0 = 0
   x1 = y1 = 64
@@ -324,43 +243,109 @@ def test_replay_big_long_scope_across_chunks(force_big):
     if y0 + 2 <= y1:
       vol[x0, y0 + 2:y1 + 1, 0] = 1
     x0 += 2; y0 += 2; x1 -= 2; y1 -= 2
+  return np.asfortranarray(vol)
+
+
+# (shape, num_labels, seed, smooth) volumes, or a named special volume
+REPLAY_CASES = {
+  "replay_kernel_interpret-0": [((64, 48, 3), 14, 123, 0)],
+  "replay_kernel_interpret-6": [((64, 48, 3), 14, 123, 6)],
+  "big_matches_numpy-9x9x4": [((9, 9, 4), 4, 31, 0)],
+  "big_matches_numpy-16x16x3-branches": [((16, 16, 3), 5, 32, 4)],
+  "big_matches_numpy-16x16x3-noisy": [((16, 16, 3), 2, 33, 0)],
+  "big_matches_numpy-33x17x3": [((33, 17, 3), 6, 34, 6)],
+  "big_matches_numpy-constant": [((8, 8, 2), 1, 35, 0)],
+  "big_matches_numpy-5x1x3": [((5, 1, 3), 3, 36, 0)],
+  "big_wide_slices-513": [((513, 6, 2), 5, 41, 3)],
+  "big_wide_slices-600": [((600, 9, 2), 7, 42, 4)],
+  "big_wide_slices-520": [((520, 5, 1), 2, 43, 0)],
+  "big_long_scope_across_chunks": ["spiral"],
+  "big_long_stream_two_key_sort": [((128, 128, 1), 2, 44, 0)],
+  "big_compact_cancel_path": ["spiral", ((33, 17, 3), 6, 34, 6),
+                              ((16, 16, 3), 2, 33, 0)],
+}
+
+
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_xla_replay_matches_oracle(case):
+  """The XLA replay (decode._decode_vcg_batch) must reproduce the numpy
+  oracle's VCG for every slice, and the full device decode the
+  volume, across wide slices, long streams (int64 sort keys above
+  16384 codepoints) and long-range scope unwinds."""
+  import jax.numpy as jnp
+  from crackle_tpu import codec
+  from crackle_tpu.headers import CrackFormat
+  from crackle_tpu.kernels import decode
+  from crackle_tpu.ops import crackcode
+  for spec in REPLAY_CASES[case]:
+    vol = spiral_volume() if spec == "spiral" else random_volume(*spec)
+    sz = vol.shape[2]
+    binary = crackle.compress(vol)
+    inputs = engine.prepare_slice_inputs(binary, 0, sz)
+    head = inputs["head"]
+    permissible = head.crack_format == CrackFormat.PERMISSIBLE
+    vcg = np.asarray(decode.decode_slices_to_vcg(
+      jnp.asarray(inputs["packed"]), jnp.asarray(inputs["nbytes"]),
+      jnp.asarray(inputs["nodes"]), jnp.asarray(inputs["n_chains"]),
+      sx=head.sx, sy=head.sy, permissible=permissible))
+    codes = codec.crack_codes(binary)
+    for z in range(sz):
+      want = crackcode.slice_code_to_vcg(
+        codes[z], head.sx, head.sy, permissible)
+      np.testing.assert_array_equal(vcg[z], want)
+    if case == "big_long_stream_two_key_sort":
+      assert inputs["packed"].shape[1] * 4 > 16384
+    np.testing.assert_array_equal(engine.decode_window(binary, 0, sz), vol)
+
+
+@pytest.mark.parametrize("sy,sx", [
+  (40, 48), (41, 48), (42, 48), (43, 48), (44, 48), (45, 48),
+])
+def test_ccl_sweep_variants_match_xla(sy, sx):
+  """The XLA sweep CCL (decode._ccl_batch) must produce the exact
+  first-visit numbering of the host CCL oracle (ops/ccl) on random
+  connectivity graphs; distinct shapes per case bust trace caching."""
+  import jax.numpy as jnp
+  from crackle_tpu.kernels import decode as _dec
+  from crackle_tpu.ops.ccl import color_connectivity_graph_slice
+  rng = np.random.RandomState(sy)
+  vcg = (rng.randint(0, 16, size=(2, sy * sx)) & 0b1010).astype(
+    np.uint8)
+  cc, N = _dec._ccl_batch(jnp.asarray(vcg), sx, sy)
+  for b in range(2):
+    want, n = color_connectivity_graph_slice(vcg[b], sx, sy)
+    np.testing.assert_array_equal(np.asarray(cc)[b], want.astype(np.int32))
+    assert int(np.asarray(N)[b]) == n
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+def test_xla_paint_matches_host_paint(dtype):
+  """decode.paint_flat (the one device paint for DeviceStream, window
+  decode and the sharded decode) must equal the host flat-label paint
+  (ops/labels.decode_flat label maps indexed by the CCL image)."""
+  import jax.numpy as jnp
+  from crackle_tpu import codec
+  from crackle_tpu.kernels import decode as _dec
+  from crackle_tpu.ops import labels as labels_ops
+  vol = random_volume((24, 20, 4), 9, 11, 4).astype(dtype)
+  if dtype == np.uint64:
+    vol = vol * np.uint64(0x1_0000_0003)
   vol = np.asfortranarray(vol)
   binary = crackle.compress(vol)
-  from crackle_tpu import codec
-  from crackle_tpu.lib import ctoi
-  code = codec.crack_codes(binary)[0]
-  n_cps = (len(code) - 4 - ctoi(code, 0, 4)) * 4
-  assert n_cps > 3 * 256, f"case regressed: {n_cps} cps"
-  out = engine.decode_window(binary, 0, 1)
-  assert out is not None
-  np.testing.assert_array_equal(out, vol)
-
-
-def test_replay_big_long_stream_two_key_sort(monkeypatch):
-  """A noisy 128^2 slice exceeds 16384 codepoints, which forces the
-  two-operand (depth, pos) lexicographic sort (the packed int32 key
-  would overflow)."""
-  import jax
-  from crackle_tpu.kernels import ccl_pallas
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
-  jax.clear_caches()
-  vol = random_volume((128, 128, 1), 2, 44, 0)
-  binary = crackle.compress(vol)
-  from crackle_tpu import codec
-  from crackle_tpu.lib import ctoi
-  code = codec.crack_codes(binary)[0]
-  n_cps = (len(code) - 4 - ctoi(code, 0, 4)) * 4
-  assert n_cps > 16384
-  out = engine.decode_window(binary, 0, 1)
-  assert out is not None
-  np.testing.assert_array_equal(out, vol)
-  jax.clear_caches()
+  head = crackle.header(binary)
+  cc, _N = engine.decode_window_ccl(binary, 0, 4)
+  offs, keys, lo, hi = engine._flat_device_tables(head, binary)
+  got = np.asarray(_dec.paint_flat(
+    jnp.asarray(cc), jnp.asarray(offs), keys, lo, hi))
+  lb = bytes(codec.raw_labels(binary))
+  for z in range(4):
+    label_map = labels_ops.decode_flat(head, lb, z, z + 1, head.dtype)
+    np.testing.assert_array_equal(got[z].astype(head.dtype),
+                                  label_map[cc[z]])
 
 
 @pytest.mark.parametrize("order", [1, 3, 5, 7])
-def test_markov_stream_device_path(monkeypatch, order):
-  from crackle_tpu.kernels import ccl_pallas
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+def test_markov_stream_device_path(order):
   """Markov streams are DeviceStream-eligible: the serial rank decode
   runs once at upload (host, threaded across slices like the
   reference's markov.hpp:268-323 pool); every window decode after
@@ -376,70 +361,10 @@ def test_markov_stream_device_path(monkeypatch, order):
   np.testing.assert_array_equal(got, vol)
 
 
-def test_replay_big_compact_cancel_path(force_big, monkeypatch):
-  """The alternative compact-cancel path (per-close run sums +
-  compact value scatter; CRACKLE_TPU_CANCEL_COMPACT=1) must stay
-  byte-correct even though the default is the measured-faster sort
-  path."""
-  from crackle_tpu.kernels import replay_big
-  monkeypatch.setattr(replay_big, "CANCEL_COMPACT", True)
-  vol = np.zeros((65, 65, 1), dtype=np.uint32)
-  x0 = y0 = 0
-  x1 = y1 = 64
-  while x1 > x0:
-    vol[x0:x1 + 1, y0, 0] = 1
-    vol[x1, y0:y1 + 1, 0] = 1
-    vol[x0:x1 + 1, y1, 0] = 1
-    if y0 + 2 <= y1:
-      vol[x0, y0 + 2:y1 + 1, 0] = 1
-    x0 += 2; y0 += 2; x1 -= 2; y1 -= 2
-  vol = np.asfortranarray(vol)
-  binary = crackle.compress(vol)
-  out = engine.decode_window(binary, 0, 1)
-  assert out is not None
-  np.testing.assert_array_equal(out, vol)
-  for shape, nl, seed, smooth in [((33, 17, 3), 6, 34, 6),
-                                  ((16, 16, 3), 2, 33, 0)]:
-    v2 = random_volume(shape, nl, seed, smooth)
-    b2 = crackle.compress(v2)
-    out2 = engine.decode_window(b2, 0, shape[2])
-    np.testing.assert_array_equal(out2, v2)
-
-
-def test_ccl_v2_plant_matches_v1(monkeypatch):
-  """The v2 CCL (converge-only kernel + root plant) must produce the
-  identical first-visit numbering and painted labels as the v1
-  rank-re-propagation path. v2 is env-gated (CRACKLE_TPU_CCL_V2) —
-  measured slower end-to-end on v5e (BENCH_NOTES round 5) — but kept
-  correct for future hardware where the trade flips."""
-  import jax.numpy as jnp
-  from crackle_tpu.kernels import ccl_pallas
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
-  rng = np.random.RandomState(11)
-  B, sy, sx = 3, 24, 40
-  labels = rng.randint(0, 6, size=(B, sy, sx)).astype(np.int32)
-  for _ in range(4):  # smooth so N stays under cap_n
-    ax = rng.randint(1, 3)
-    m = rng.rand(B, sy, sx) < 0.6
-    labels = np.where(m, np.roll(labels, 1, axis=ax), labels)
-  from crackle_tpu.kernels import encode as enc_k
-  vcg = enc_k.labels_to_vcg(jnp.asarray(labels), sx, sy)
-  cap_n = 512
-  T = jnp.asarray(
-    rng.randint(1, 1 << 20, size=(B, 1, cap_n)).astype(np.int32))
-  cc1, N1, p1 = ccl_pallas.ccl_paint_traced(vcg, T, sx, sy)
-  cc2, N2, p2 = ccl_pallas.ccl_paint_v2(vcg, T, sx, sy)
-  np.testing.assert_array_equal(np.asarray(cc1), np.asarray(cc2))
-  np.testing.assert_array_equal(np.asarray(N1), np.asarray(N2))
-  np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-
-
-def test_pins_device_stream_windows(monkeypatch):
-  """Condensed-pins streams park in HBM via upload_stream (like flat
-  streams) and serve arbitrary z windows with crc checking."""
-  import jax.numpy as jnp
-  from crackle_tpu.kernels import ccl_pallas, engine
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+def test_pins_device_stream_windows():
+  """Condensed-pins streams park in device memory via upload_stream
+  (like flat streams) and serve arbitrary z windows with crc
+  checking."""
   rng = np.random.RandomState(9)
   vol = rng.randint(0, 4, size=(20, 18, 10)).astype(np.uint32)
   for _ in range(12):
@@ -496,32 +421,3 @@ def test_split_decode_long_slices(monkeypatch):
   out = engine.decode_window_ccl(binary, 0, 3, check_crcs=True)
   assert out is not None
   np.testing.assert_array_equal(out[0][2], cc[2])
-
-
-@pytest.mark.parametrize("add_sweep,prime,sy,sx", [
-  (True, "", 40, 48),        # default: additive-penalty sweeps
-  (False, "", 41, 48),       # packed-bit sweeps (CCL_ADD=0)
-  (True, "xf", 42, 48),      # full-reach x prime (gated negative)
-  (True, "xfxb", 43, 48),
-  (True, "full", 44, 48),
-  (False, "full2", 45, 48),
-])
-def test_ccl_sweep_variants_match_xla(monkeypatch, add_sweep, prime,
-                                      sy, sx):
-  """Every sweep formulation (additive-penalty vs packed-bit flags,
-  with and without a full-reach prime pass) must produce the exact
-  first-visit numbering of the XLA oracle. The prime modes are
-  env-gated measured negatives (BENCH_NOTES round 5) kept correct;
-  distinct shapes per case bust any trace caching."""
-  import jax.numpy as jnp
-  from crackle_tpu.kernels import ccl_pallas, decode as _dec
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
-  monkeypatch.setattr(ccl_pallas, "ADD_SWEEP", add_sweep)
-  monkeypatch.setattr(ccl_pallas, "SWEEP_PRIME", prime)
-  rng = np.random.RandomState(sy)
-  vcg = (rng.randint(0, 16, size=(2, sy * sx)) & 0b1010).astype(
-    np.uint8)
-  ref_cc, ref_N = _dec._ccl_batch(jnp.asarray(vcg), sx, sy)
-  cc, N = ccl_pallas.ccl_batch_traced(jnp.asarray(vcg), sx, sy)
-  np.testing.assert_array_equal(np.asarray(ref_cc), np.asarray(cc))
-  np.testing.assert_array_equal(np.asarray(ref_N), np.asarray(N))

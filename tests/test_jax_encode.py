@@ -73,13 +73,14 @@ import pytest
 
 
 @pytest.fixture
-def device_encode(monkeypatch):
-  import jax
-  from crackle_tpu.kernels import ccl_pallas
-  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
-  jax.clear_caches()
+def device_encode():
+  """Turn the device path on (codec.device_path_on) so the XLA encode
+  stages run here on the CPU backend."""
+  from crackle_tpu import codec
+  prev = codec.get_engine()
+  codec.set_engine('jax')
   yield
-  jax.clear_caches()
+  codec.set_engine(prev)
 
 
 def random_volume(shape, nl, seed, smooth=0, dtype=np.uint32):

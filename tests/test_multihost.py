@@ -4,7 +4,8 @@ compress_shard -> assemble_shards (byte-identical to single-process)
 
 Each process runs 2 virtual CPU devices, so the global view is a
 4-device cluster split across 2 processes — the same topology shape
-as 2 TPU hosts on DCN (SURVEY.md section 2.5 / BASELINE 2-host row).
+as 2 hosts over the network (SURVEY.md section 2.5 / BASELINE 2-host
+row).
 """
 import os
 import socket

@@ -116,10 +116,8 @@ def test_compress_sharded_byte_identity():
   """Multi-chip encode: per-voxel stages shard over the mesh; the
   assembled stream must be byte-identical to single-process compress.
 
-  Deliberately NOT monkeypatching Pallas interpret mode: on the CPU
-  mesh the step must route through the XLA CCL fallback on its own,
-  exactly as in the driver's dryrun (the round-4 regression was this
-  path silently returning None)."""
+  The CPU mesh runs the same XLA step as a GPU mesh (a regression
+  once made this path silently return None)."""
   from crackle_tpu.parallel import sharding
   for shape, nl, seed, smooth, dtype in [
       ((24, 24, 16), 8, 61, 4, np.uint32),   # z divisible by 8

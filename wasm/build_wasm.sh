@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Build libcrackle.wasm + JS glue with emscripten (reference parity:
 # wasm/build_wasm.sh there). Requires an emsdk environment (em++ on
-# PATH); the CI image used for wheels has one, this repo's TPU dev
+# PATH); the CI image used for wheels has one, this repo's dev
 # container does not — tests/test_wasm_shim.py exercises the exact
 # same shim natively under g++ instead.
 set -euo pipefail
